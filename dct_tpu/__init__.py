@@ -1,6 +1,6 @@
-"""dct_tpu — a TPU-native block-transform image codec framework.
+"""dct_tpu — a block-transform image codec framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the pipeline specified by the C
+A ground-up JAX/XLA re-design of the pipeline specified by the C
 reference ``erkinov-wtf/dct`` (adaptive-DCT JPEG-style compressor):
 level-shift -> 2D DCT-II -> (adaptive) quantization -> zigzag -> RLE ->
 Huffman -> real serialized bitstream (which the reference lacks) -> decode

@@ -38,8 +38,6 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
                    help="block rows per bitstream stripe")
     p.add_argument("--chroma", choices=("gray", "444", "420"), default=None,
                    help="color mode (default: gray for 2D input, 420 for RGB)")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused Pallas kernels (TPU)")
     p.add_argument("--decode-index", default="auto",
                    choices=("auto", "on", "off"),
                    help="store bit-packed per-block bit lengths "
@@ -65,7 +63,6 @@ def _config_from_args(args, color: bool):
         dc_prediction=args.dc_prediction,
         stripe_rows=args.stripe_rows,
         chroma=chroma,
-        use_pallas=args.pallas,
         decode_index={"auto": "auto", "on": True, "off": False}[
             args.decode_index
         ],
@@ -389,7 +386,7 @@ def cmd_decode_video(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="dct-tpu",
-                                 description="TPU-native DCT image codec")
+                                 description="DCT block-transform image codec")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("encode", help="image -> .tpdc")
@@ -456,6 +453,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from dct_tpu.utils import compile_cache
+
+    compile_cache.configure()
     return args.fn(args)
 
 

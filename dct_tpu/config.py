@@ -60,9 +60,6 @@ class CodecConfig:
         third at q50 while every worst-case shape stays identical (run
         codes are capped at 8 bits). Off by default = wire-compatible with
         the reference-convention layout.
-      use_pallas: route the transform through the fused Pallas kernels
-        (ops/transform_pallas.py) instead of the XLA einsum path. On
-        non-TPU backends the kernels run in interpreter mode.
       compat_b1: reproduce reference bug B1 — the non-adaptive dequantize
         multiplies by ``1/q`` instead of ``q`` (``quantization.c:144`` with the
         reciprocal table from ``quantization.c:106``). Off by default; the
@@ -76,21 +73,17 @@ class CodecConfig:
         mesh (SURVEY.md section 5.8).
       decode_index: store per-BLOCK bit lengths in the container
         (container v2) — the restart-marker analog that makes every block
-        an independently addressable substream, unlocking the DEVICE
-        entropy decoder (ops/entropy_decode_pallas.py): with per-block
-        offsets, 128 blocks decode in lane-parallel per Pallas grid cell
-        instead of the host's serial per-symbol loop, so decode_to_device
-        never leaves the chip. The index is bit-packed at the per-plane
-        width the data needs (container.py flags2 bit1); measured cost on
-        the real-image set (benchmarks/index_cost.py, BASELINE.md r5):
-        ~13%% of the payload at q50, ~4%% at q90, ~2%% at q97 (the u16
-        wire form the docstring previously called "3-5%% at q50" really
-        cost 21%% there). Values: True (always index), False (never, v1
-        wire format), "auto" (the default: index the container only when
-        the packed index is <= AUTO_INDEX_BOUND of the payload — device
-        decode ships on the default path exactly where its size cost is
-        small; computing the per-block lengths is free on the fused
-        encode path, measured 860.3 vs 860.1 Mpix/s same-session).
+        an independently addressable substream, so the device entropy
+        decoder (ops/entropy_decode.py, plain lax) decodes every block of
+        a plane at once instead of the host's serial per-symbol loop, and
+        decode_to_device never sends coefficients over the host link.
+        The index is bit-packed at the per-plane width the data needs
+        (container.py flags2 bit1). Values: True (always index), False
+        (never, v1 wire format), "auto" (the default: index the container
+        only when the packed index is <= container.AUTO_INDEX_BOUND of
+        the payload; its size on the real-image set is measured by
+        benchmarks/index_cost.py). Computing the per-block lengths is a
+        reduction the staged encode does anyway.
       dtype: compute dtype for the transform matmuls. float32 keeps the
         quantized integer outputs exact w.r.t. the float64 C oracle for all
         8-bit inputs (verified by tests/test_parity.py).
@@ -104,7 +97,6 @@ class CodecConfig:
     static_tables: bool = False
     coded_runs: bool = False
     dc_prediction: bool = False
-    use_pallas: bool = False
     compat_b1: bool = False
     chroma: ChromaMode = "gray"
     stripe_rows: int = 1

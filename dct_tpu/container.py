@@ -27,7 +27,8 @@ Layout (little-endian):
     16 n_planes   u8
     17 chroma     u8 (0 gray, 1 4:4:4, 2 4:2:0)
     18 stripe_rows u16
-    [version >= 2] 20 flags2 u8: bit0 decode_index
+    [version >= 2] 20 flags2 u8: bit0 decode_index,
+                   bit1 packed index (see decode_index below)
 
   per plane:
     plane_w u32, plane_h u32, n_stripes u32
@@ -44,7 +45,7 @@ Layout (little-endian):
       reference has no bitstream at all, SURVEY.md B2): it makes every
       block an independently addressable substream, which is what the
       device entropy decoder parallelizes over
-      (ops/entropy_decode_pallas.py). Two encodings:
+      (ops/entropy_decode.py). Two encodings:
         * flags2 bit1 set (all new containers): u8 width w (1..16), then
           ceil(n_blocks*w/8) bytes of MSB-first w-bit entries, pad bits
           zero — w is the smallest width the plane's largest block

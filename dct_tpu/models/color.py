@@ -6,8 +6,10 @@ BASELINE.json config 3: per-plane DCT+quant with 4:4:4 or 4:2:0 chroma,
 using the standard JPEG chrominance quant table for Cb/Cr
 (tables.JPEG_CHROMA_QUANT).
 
-Color conversion is BT.601 full-range (the JFIF convention): pure
-elementwise VPU work, fused by XLA into the tiling reshapes around it.
+Color conversion is BT.601 full-range (the JFIF convention): elementwise
+work fused by XLA into the tiling reshapes around it; the forward
+conversion is 16-bit fixed point so containers do not depend on the
+device that encoded them.
 """
 
 from __future__ import annotations
@@ -23,14 +25,36 @@ from dct_tpu.config import CodecConfig
 from dct_tpu.models import codec as _codec
 
 
-def rgb_to_ycbcr(rgb: jax.Array) -> jax.Array:
-    """(H, W, 3) u8 RGB -> (H, W, 3) float YCbCr (JFIF full-range BT.601)."""
-    x = rgb.astype(jnp.float32)
-    r, g, b = x[..., 0], x[..., 1], x[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
-    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
-    return jnp.stack([y, cb, cr], axis=-1)
+# BT.601 full-range (JFIF) RGB -> YCbCr in 16-bit fixed point, as libjpeg's
+# jccolor.c does it: integer arithmetic gives identical planes on every
+# backend, where float products and sums (contracted into FMAs or summed
+# in another order by the GPU compiler) moved pixels across rounding
+# boundaries and changed the encoded bytes. Each row sums to 65536 (Y) or
+# 0 (Cb, Cr), so gray input has neutral chroma exactly.
+_Y_FIX = (19595, 38470, 7471)
+_CB_FIX = (-11058, -21710, 32768)
+_CR_FIX = (32768, -27439, -5329)
+
+
+def _fixed_dot(rgb: jax.Array, coef) -> jax.Array:
+    """(H, W, 3) u8 -> (H, W) int32 sum of coef * channel (2^16 scale)."""
+    x = rgb.astype(jnp.int32)
+    return coef[0] * x[..., 0] + coef[1] * x[..., 1] + coef[2] * x[..., 2]
+
+
+def _sum_2x2(plane: jax.Array) -> jax.Array:
+    """2x2 box sum (edge-replicated for odd dims): (H, W) ->
+    (ceil(H/2), ceil(W/2)), exact in int32."""
+    h, w = plane.shape
+    ph, pw = h + (h & 1), w + (w & 1)
+    x = jnp.pad(plane, ((0, ph - h), (0, pw - w)), mode="edge")
+    return x.reshape(ph // 2, 2, pw // 2, 2).sum(axis=(1, 3))
+
+
+def _round_shift(x: jax.Array, shift: int, offset: int) -> jax.Array:
+    """Fixed-point x / 2^shift + offset, rounded half up, clamped to u8."""
+    y = (x + (offset << shift) + (1 << (shift - 1))) >> shift
+    return jnp.clip(y, 0, 255).astype(jnp.uint8)
 
 
 def ycbcr_to_rgb(ycc: jax.Array) -> jax.Array:
@@ -43,15 +67,6 @@ def ycbcr_to_rgb(ycc: jax.Array) -> jax.Array:
     b = y + 1.772 * cb
     rgb = jnp.stack([r, g, b], axis=-1)
     return jnp.clip(jnp.round(rgb), 0, 255).astype(jnp.uint8)
-
-
-def subsample_420(plane: jax.Array) -> jax.Array:
-    """2x2 box-filter downsample (H, W) -> (ceil(H/2), ceil(W/2))."""
-    h, w = plane.shape
-    ph, pw = h + (h & 1), w + (w & 1)
-    x = jnp.pad(plane, ((0, ph - h), (0, pw - w)), mode="edge")
-    x = x.reshape(ph // 2, 2, pw // 2, 2)
-    return x.mean(axis=(1, 3))
 
 
 def upsample_420(plane: jax.Array, h: int, w: int) -> jax.Array:
@@ -77,15 +92,16 @@ def planes_to_rgb(
 
 @functools.partial(jax.jit, static_argnames=("mode",))
 def _to_planes(rgb: jax.Array, mode: str):
-    ycc = rgb_to_ycbcr(rgb)
-    y = jnp.clip(jnp.round(ycc[..., 0]), 0, 255).astype(jnp.uint8)
-    cb, cr = ycc[..., 1], ycc[..., 2]
+    """(H, W, 3) u8 RGB -> u8 (Y, Cb, Cr) planes; 4:2:0 chroma is the 2x2
+    box mean (edge-replicated for odd dims), all in integer arithmetic."""
+    y = _round_shift(_fixed_dot(rgb, _Y_FIX), 16, 0)
+    cb = _fixed_dot(rgb, _CB_FIX)
+    cr = _fixed_dot(rgb, _CR_FIX)
+    shift = 16
     if mode == "420":
-        cb = subsample_420(cb)
-        cr = subsample_420(cr)
-    cb = jnp.clip(jnp.round(cb), 0, 255).astype(jnp.uint8)
-    cr = jnp.clip(jnp.round(cr), 0, 255).astype(jnp.uint8)
-    return y, cb, cr
+        cb, cr = _sum_2x2(cb), _sum_2x2(cr)
+        shift = 18  # a sum of 4 samples
+    return y, _round_shift(cb, shift, 128), _round_shift(cr, shift, 128)
 
 
 class ColorImageCodec:
@@ -111,16 +127,24 @@ class ColorImageCodec:
         )
 
     def decode(self, data: bytes) -> np.ndarray:
-        return np.asarray(self.decode_to_device(data))
+        """Decode to a host array; entropy decode runs on the host."""
+        return np.asarray(
+            self._decode(data, _codec._decode_plane_host_entropy)
+        )
 
     def decode_to_device(self, data: bytes) -> jax.Array:
         """Decode with the RGB reconstruction left ON DEVICE (u8 jax
-        array) — for on-chip consumers; mirrors ImageCodec.decode_to_device.
-        Entropy decode runs on the host; dequant+IDCT per plane plus the
-        chroma upsample and YCbCr->RGB stay on device."""
+        array) — for on-device consumers; mirrors
+        ImageCodec.decode_to_device: indexed containers entropy-decode on
+        the device too. Dequant+IDCT per plane plus the chroma upsample and
+        YCbCr->RGB run on device."""
+        return self._decode(data, _codec.decode_plane_device)
+
+    @staticmethod
+    def _decode(data: bytes, decode_plane) -> jax.Array:
         c = cont.deserialize(data)
         cfg = c.config
-        y = _codec.decode_plane_device(c.planes[0], cfg, chroma=False)
-        cb = _codec.decode_plane_device(c.planes[1], cfg, chroma=True)
-        cr = _codec.decode_plane_device(c.planes[2], cfg, chroma=True)
+        y = decode_plane(c.planes[0], cfg, chroma=False)
+        cb = decode_plane(c.planes[1], cfg, chroma=True)
+        cr = decode_plane(c.planes[2], cfg, chroma=True)
         return planes_to_rgb(y, cb, cr, cfg.chroma, c.height, c.width)

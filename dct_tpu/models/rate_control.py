@@ -3,7 +3,7 @@ probing EXACT container sizes / distortions on device.
 
 The reference ships an encoded-size ESTIMATOR (`get_encoded_size`,
 entropy.c:363-399 — SURVEY.md section 2 component 11) but never closes the
-loop into rate control. This module does, the TPU way: a size probe is the
+loop into rate control. This module does, on the device: a size probe is the
 staged encode pipeline run WITHOUT the bit-pack — device transform + RLE +
 symbol chunk lengths reduced to one int32 per stripe — so probing a
 quality costs one analyze dispatch (+ one chunk-length dispatch for
@@ -26,10 +26,10 @@ quality.
 Deliberately NOT batched across the ladder: stacking the per-quality
 operators into one vmapped dispatch would re-derive the transform outside
 the canonical per-quality constants (transform.packed_encode_operator_
-split), risking exactly the f32 tie-rounding divergence CLAUDE.md records
-for re-associated contractions — a silently-wrong size on the TPU backend
-is worse than ~4 extra 32 ms dispatches per image. Probes are jit-cached
-per (quality, shape), so repeated calls pay dispatches only.
+split), risking an f32 tie-rounding divergence from the real encode — a
+silently-wrong size is worse than a few extra dispatches per image.
+Probes are jit-cached per (quality, shape), so repeated calls pay
+dispatches only.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from dct_tpu import container as cont
 from dct_tpu.config import CodecConfig
 from dct_tpu.models import codec as _codec
 from dct_tpu.ops import blocks as blk
+from dct_tpu.ops import transform
 
 # Quality rungs for the encode_to_* ladders: dense where the size/quality
 # curve is steep (high quality), sparse where it is flat.
@@ -82,12 +83,16 @@ def _plane_roundtrip(
     pixels = blk.image_to_blocks(plane_padded, n)
     scale = None
     if cfg.adaptive:
-        from dct_tpu.ops import quant, transform
+        from dct_tpu.ops import quant
 
         var = quant.block_variance_flat(transform.level_shift(pixels))
         scale = quant.scale_from_variance_code(quant.variance_code(var))
-    zz = _codec._fused_encode(pixels, cfg, scale, chroma)
-    rec = _codec._fused_decode(zz, cfg, scale, chroma)
+    zz = transform.encode_blocks(
+        pixels, cfg, adaptive_scale=scale, chroma=chroma
+    )
+    rec = transform.decode_blocks(
+        zz, cfg, adaptive_scale=scale, chroma=chroma
+    )
     return blk.blocks_to_image(
         rec, plane_padded.shape[0], plane_padded.shape[1], n
     )
@@ -562,9 +567,8 @@ def _plane_sse_chunks(
 
     Runs the production transform pair via _plane_roundtrip (the same ops
     decode_plane_device uses), so the reconstruction is bit-identical to
-    decoding a real container (the wire carries these exact integers;
-    byte-identity between staged, fused, and packed paths is established
-    by tests/test_fused_encode.py). Chunked int32 keeps the sum exact
+    decoding a real container (the wire carries these exact integers).
+    Chunked int32 keeps the sum exact
     without x64: each chunk is at most 4096 * 255^2 < 2^31; the caller
     totals chunks in Python ints."""
     img = _plane_roundtrip(plane_padded, cfg, chroma)[:h, :w]
@@ -627,8 +631,7 @@ def _rgb_sse_chunks(
 
 def _rgb_sse_sharded(image: np.ndarray, cfg: CodecConfig, mesh) -> int:
     """Sharded RGB distortion probe: per-plane roundtrips run stripe-
-    sharded (shard_map — the Mosaic transform pair can't be GSPMD-
-    partitioned), then the cross-plane YCbCr recombine + squared diff run
+    sharded (shard_map, each device on its own stripe rows), then the cross-plane YCbCr recombine + squared diff run
     under plain jit over the row-sharded planes (elementwise + upsample;
     XLA inserts the resharding). Integer chunk sums are order-exact, so
     the total equals _rgb_sse_chunks' for every mesh shape."""

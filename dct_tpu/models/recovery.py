@@ -144,7 +144,9 @@ def _encode_one_stripe(
         var = quant.block_variance_flat(transform.level_shift(pixels))
         var_codes = quant.variance_code(var)
         scale = quant.scale_from_variance_code(var_codes)
-    zz = codec._fused_encode(pixels, cfg, scale, chroma)
+    zz = transform.encode_blocks(
+        pixels, cfg, adaptive_scale=scale, chroma=chroma
+    )
     if cfg.dc_prediction:
         zz = codec.dc_predict(zz, 1)
     symbols = rle.rle_encode_positional(zz)
@@ -374,7 +376,9 @@ def _decode_plane_region(
     if cfg.adaptive:
         codes = jnp.asarray(p.variance_codes[s0 * bps : s1 * bps])
         scale = quant.scale_from_variance_code(codes)
-    pixels = codec._fused_decode(jnp.asarray(zz), cfg, scale, chroma)
+    pixels = transform.decode_blocks(
+        jnp.asarray(zz), cfg, adaptive_scale=scale, chroma=chroma
+    )
     img = blk.blocks_to_image(
         pixels, (s1 - s0) * rows_per_stripe, bw * n, n
     )

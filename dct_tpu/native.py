@@ -162,14 +162,14 @@ def unpack_stripes(
 ) -> np.ndarray:
     """Decode stripe substreams -> (n_stripes * bps, n2) int16 zigzag.
 
-    int16 because the wire values are 16-bit two's complement and the
-    device decode kernels consume i16 — half the store traffic here and
-    half the coefficient-upload bytes on the decode_to_device path. The
+    int16 because the wire values are 16-bit two's complement — half the
+    store traffic here and half the coefficient-upload bytes on the
+    unindexed decode_to_device path. The
     buffer starts uninitialized; the C decoder zeroes each block in its
     own loop (a separate full-array fill cost ~15% of the entropy path).
 
     n_threads defaults to the host's core count (stripes are the parallel
-    axis; on a 1-core host the LUT decoder still runs ~650 Mpix/s)."""
+    axis)."""
     import os
 
     if n_threads is None:

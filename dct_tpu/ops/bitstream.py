@@ -2,7 +2,7 @@
 
 The reference builds Huffman codes but never emits a bitstream — its decoder
 reads the in-memory symbol array (entropy.c:333-358) and sizes are estimates
-only (SURVEY.md B2). This module is the real thing, built the TPU way
+only (SURVEY.md B2). This module is the real thing, built data-parallel
 (SURVEY.md section 7, hard part #1): variable-length output on a fixed-shape
 machine via a two-pass scheme —
 
@@ -73,10 +73,9 @@ UNITS_PER_BLOCK_WORST = units_per_block_worst(64)  # 160 (8x8 blocks)
 
 
 class PackedStripes(NamedTuple):
-    """units: (n_stripes, U) uint16 big-endian stream units (kernels build
-    them in 32-bit registers — Mosaic restricts 16-bit dynamic stores — and
-    narrow on the way out, halving HBM/D2H bytes); bit_lengths:
-    (n_stripes,) int32 actual payload bits."""
+    """units: (n_stripes, U) uint16 big-endian stream units (built in
+    32-bit words and narrowed on the way out, halving device-memory and
+    D2H bytes); bit_lengths: (n_stripes,) int32 actual payload bits."""
 
     units: jax.Array
     bit_lengths: jax.Array
@@ -147,8 +146,8 @@ def symbol_chunks(
 
     if mode == "category":
         cats = hf.category_of(values)
-        # 16-bin one-hot contraction instead of per-element table gather
-        # (XLA gathers are per-element on TPU; a fused compare-dot is VPU)
+        # 16-bin one-hot contraction instead of a per-element table gather
+        # (whether a gather is cheaper on the GPU is ROADMAP D4)
         oh = (cats[..., None] == jnp.arange(hf.NUM_CATEGORIES)).astype(jnp.int32)
         a_v = jnp.sum(
             oh * jnp.asarray(cat_codes, jnp.uint32).astype(jnp.int32), axis=-1
@@ -227,7 +226,7 @@ def _pack_one_stripe_gather(cv: jax.Array, cl: jax.Array, units_capacity: int):
     """Scatter-free packing of one stripe's chunk stream (the hot path).
 
     Instead of scattering each chunk's two 16-bit-unit contributions into
-    the output (XLA lowers scatter to a serial loop on TPU), this inverts
+    the output, this inverts
     the mapping with a prefix-sum identity: contributions to unit u are
 
         buf[u] = W_hi[K(u)] - W_hi[K(u-1)] + W_lo[K(u-1)] - W_lo[K(u-2)]
@@ -307,13 +306,10 @@ def pack_chunks_tiled(
 
         H[s, t, u] = sum_c w[s, t, c] * [key[s, t, c] - base[s, t] == u]
 
-    computed as one fused broadcast-compare-reduce (static shapes, pure
-    VPU; XLA fuses the (S, T, tile, SPAN) broadcast into the reduction).
-    Tiles are then combined by a lax.scan of span additions at each tile's
-    base unit — T sequential steps of contiguous (S, SPAN) window adds,
-    which is the only data-dependent placement left. Every alternative was
-    measured and loses: XLA scatter-per-chunk +2.3 s on 16.7 Mpix,
-    searchsorted gathers +46 s (TPU per-element gather ~66 ns).
+    computed as one fused broadcast-compare-reduce (static shapes; XLA
+    fuses the (S, T, tile, SPAN) broadcast into the reduction). Tiles are
+    then combined by log2(T) levels of pairwise span merges — contiguous
+    window adds, the only data-dependent placement left.
 
     Byte-identical to pack_chunks (tested).
     """
@@ -340,7 +336,7 @@ def pack_chunks_tiled(
         hi = jnp.pad(hi, ((0, 0), (0, pad)))
         lo = jnp.pad(lo, ((0, 0), (0, pad)))
     T = C_pad // tile
-    span = tile + 128  # tile units + lo spill, lane-aligned
+    span = tile + 128  # tile units + lo spill, 128-aligned
 
     k = i0.reshape(n_stripes, T, tile)
     whi = hi.reshape(n_stripes, T, tile)
@@ -487,10 +483,13 @@ def pack_stripes_host(
     val_table: "hf.CanonicalTable | None" = None,
     vmin: int = 0,
     n2: int = 64,
+    run_table: "hf.CanonicalTable | None" = None,
 ) -> list[bytes]:
     """Host (NumPy) packer with identical wire format — the oracle for the
     device scatter packer. symbols_per_stripe: list of (values, runs) numpy
-    pairs, already restricted to live symbols, concatenated per stripe."""
+    pairs, already restricted to live symbols, concatenated per stripe.
+    run_table: canonical run-code table (cfg.coded_runs); None = the
+    fixed-width run field."""
     rb = run_field_bits(n2)
     out = []
     for values, runs in symbols_per_stripe:
@@ -514,7 +513,10 @@ def pack_stripes_host(
                     w.write_bits(v & 0xFFFF, 16)
             elif mode == "none":
                 w.write_bits(v & 0xFFFF, 16)
-            w.write_bits(r, rb)
+            if run_table is not None:
+                w.write_bits(int(run_table.codes[r]), int(run_table.lengths[r]))
+            else:
+                w.write_bits(r, rb)
         out.append(w.getvalue())
     return out
 

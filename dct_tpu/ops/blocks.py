@@ -3,7 +3,7 @@
 The reference only ever hints at this layer: create_block_from_pixels
 (dct.c:109-120) gathers one N x N block from a row-major image but is never
 called by any test; the image-level loop is unwritten (SURVEY.md section
-3.5). On TPU the "loop" is a reshape/transpose: (H, W) -> (H/N * W/N, N^2)
+3.5). On the device the "loop" is a reshape/transpose: (H, W) -> (H/N * W/N, N^2)
 macroblock rows, with edge padding by replication (JPEG convention) so
 partial tiles transform cleanly.
 """

@@ -4,7 +4,7 @@ construction, and the reference's per-block size-estimate semantics.
 The reference builds a per-block Huffman tree over raw RLE values with a
 min-heap (entropy.c:15-128, :261-328) and only ever *estimates* sizes
 (get_encoded_size, entropy.c:363-399) — codes are never emitted as bits
-(SURVEY.md B2). This module supplies what a real TPU codec needs instead:
+(SURVEY.md B2). This module supplies what a real device codec needs instead:
 
   * per-image (per-plane) tables built from a GLOBAL symbol histogram —
     computed on device as a vectorized bincount and combined across shards
@@ -42,7 +42,7 @@ RUN_ALPHABET = 65
 # Coded-runs mode (cfg.coded_runs) Huffman-codes the run field instead of
 # spending a flat 8 bits (~83% of runs are <= 3 on photographic content).
 # Capping run codes at 8 bits keeps every worst-case shape (bits/symbol,
-# units/block, kernel spans) identical to the fixed-run layout.
+# units/block) identical to the fixed-run layout.
 RUN_MAX_CODE_LEN = 8
 
 
@@ -92,8 +92,8 @@ def value_from_category(cat: np.ndarray, extra: np.ndarray) -> np.ndarray:
 def category_histogram_masked(values: jax.Array, live: jax.Array) -> jax.Array:
     """Histogram of symbol categories over live symbols (mask form).
 
-    Compare-and-reduce over the 16 bins — no scatter (XLA lowers scatter to
-    a serial loop on TPU; 16 fused reduction channels are pure VPU work).
+    Compare-and-reduce over the 16 bins — no scatter: 16 fused
+    elementwise reduction channels.
     Returns (NUM_CATEGORIES,) int32 — psum-able across shards.
     """
     cats = jnp.where(live, category_of(values), -1)

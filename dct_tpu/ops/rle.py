@@ -11,7 +11,7 @@ Reference semantics (entropy.c:216-256, run_length_encode):
     pos += 1. After a block's symbols, pos always lands exactly at N^2, so a
     bitstream decoder needs no per-block symbol count.
 
-TPU-native formulation (SURVEY.md section 7 "hard parts" #1): everything is
+Data-parallel formulation (SURVEY.md section 7 "hard parts" #1): everything is
 a prefix-sum over the length-N^2 axis, batched over blocks:
 
   * ``pnz[i]`` — index of the previous nonzero — is an exclusive cumulative

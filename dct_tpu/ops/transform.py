@@ -8,16 +8,17 @@ Reference behavior being reimplemented (not translated):
   * coefficient rounding — copy_block_to_coefficients, dct.c:123-129, which
     uses C ``round()`` = round-half-AWAY-from-zero (not banker's rounding).
 
-TPU design: blocks are a batch axis, never a loop. Two paths:
+Blocks are a batch axis, never a loop. Two paths:
   * ``dct2``/``idct2`` — einsum on (B, N, N), the always-correct float
     transform (used for float-domain tests and the public transform API).
   * ``encode_blocks``/``decode_blocks`` — the fused single-matmul path over
     (B, N^2) using the Kronecker operators from dct_tpu.tables; this is the
-    production encode/decode front-end and what the Pallas kernel implements.
+    production encode/decode front-end.
 
-All matmuls run at ``jax.lax.Precision.HIGHEST`` so float32 on the MXU is
-accurate enough to match the float64 C oracle after integer rounding
-(verified in tests/test_parity.py).
+Decode matmuls run at ``jax.lax.Precision.HIGHEST`` (no TF32 on a GPU);
+the encode matmul is three bf16 passes with f32 accumulation (see
+split_operand_matmul). Both match the float64 C oracle after integer
+rounding except at exact .5 ties (tests/test_parity.py).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def round_half_away(x: jax.Array) -> jax.Array:
     -0.5 -> -1 (dct.c:126, quantization.c:124). trunc(x +- 0.5) is
     bit-identical to the textbook sign(x)*floor(|x|+0.5) (negation is
     exact, so the magnitude add rounds the same way) in 4 vector ops
-    instead of 6 — this sits in every kernel's epilogue.
+    instead of 6 — this sits in every encode/decode epilogue.
     """
     half = jnp.where(x >= 0, jnp.asarray(0.5, x.dtype), jnp.asarray(-0.5, x.dtype))
     return jnp.trunc(x + half)
@@ -51,7 +52,7 @@ def dct2(blocks: jax.Array, block_size: int | None = None) -> jax.Array:
     """Forward 2D DCT on a batch of blocks, shape (..., N, N).
 
     Equivalent to the reference's dct_forward (dct.c:52-74): D @ X @ D.T per
-    block, but batched as one einsum so XLA maps it onto the MXU.
+    block, but batched as one einsum (one matrix-unit contraction).
     """
     n = blocks.shape[-1] if block_size is None else block_size
     d = jnp.asarray(tables.dct_basis(n), dtype=blocks.dtype)
@@ -82,7 +83,7 @@ def level_unshift(x: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 
 
-PACKED_N2 = (4, 16, 64)  # block sizes whose n2 divides the 128-lane row
+PACKED_N2 = (4, 16, 64)  # block sizes whose n2 divides the 128-wide row
 
 
 def _block_diag(m: np.ndarray, copies: int) -> np.ndarray:
@@ -98,13 +99,13 @@ def _block_diag(m: np.ndarray, copies: int) -> np.ndarray:
 def packed_encode_operator_split(cfg: CodecConfig, chroma: bool = False):
     """Block-diagonal bf16 split parts (three (128,128)) + (1,128) f32 bias.
 
-    128 // n2 whole blocks ride per 128-lane row. The STAGED XLA path and
-    the Mosaic kernels both contract over the SAME padded K=128 axis —
-    the f32 accumulation tree of a K=n2 dot and a K=128 dot are not
-    guaranteed to round identically at exact ties (observed: one +-1
-    pixel at N=4), so sharing the packed formula is what makes
-    fused-vs-staged byte-identity hold by construction for every N in
-    PACKED_N2.
+    128 // n2 whole blocks ride per 128-wide row. Every encode contracts
+    over this SAME padded K=128 axis: the f32 accumulation trees of a
+    K=n2 dot and a K=128 dot are not guaranteed to round identically at
+    exact ties (observed: one +-1 pixel at N=4), so one formula keeps
+    containers identical across the code paths and devices that share
+    it. Whether a plain K=n2 contraction would still meet parity on the
+    GPU is ROADMAP S5/D4.
     """
     parts = []
     for part in tables.fused_encode_operator_split(cfg, chroma=chroma)[:3]:
@@ -123,16 +124,15 @@ def packed_decode_operator(cfg: CodecConfig, chroma: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def packed_ac_mask(n2: int) -> np.ndarray:
-    """(1, 128) mask: 0 at each block's DC lane, 1 elsewhere."""
+    """(1, 128) mask: 0 at each block's DC column, 1 elsewhere."""
     mask = np.ones((1, 128), np.float32)
     mask[0, ::n2] = 0.0
     return mask
 
 
 def expand_block_scale(s: jax.Array, n2: int) -> jax.Array:
-    """(rows, bpr) per-block scalar -> (rows, 128) lanewise. One canonical
-    op sequence (broadcast + where chain) shared by XLA and Mosaic — NOT
-    pltpu.repeat, which tiles (abab...) instead of element-repeating."""
+    """(rows, bpr) per-block scalar -> (rows, 128), each block's scalar
+    repeated over its n2 columns (broadcast + where chain)."""
     rows, bpr = s.shape
     sub = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 1) // n2
     out = jnp.broadcast_to(s[:, 0:1], (rows, 128))
@@ -164,9 +164,9 @@ def split_operand_matmul(x, m0, m1, m2, b) -> jax.Array:
     default-precision bf16 passes (see tables.fused_encode_operator_split).
 
     ``x`` must hold integer pixel values in [0, 255] (exact in bf16). The
-    left-associated sum order is load-bearing: XLA einsum, the
-    transform_pallas kernels, and the fused encode kernel all use THIS
-    function's formula so their rounded coefficients are bit-identical.
+    left-associated sum order is load-bearing: every encode path (single
+    device, sharded, rate-control probes) uses THIS function's formula so
+    their rounded coefficients are bit-identical.
     """
     xb = x.astype(jnp.bfloat16)
     y = jnp.dot(xb, jnp.asarray(m0), preferred_element_type=jnp.float32)
@@ -204,11 +204,9 @@ def encode_blocks(
 
     The matmul is the split-operand form (tables.fused_encode_operator_split):
     pixels are exact in bf16, the operator rides as three bf16 terms — half
-    the MXU passes of f32 HIGHEST at the same oracle-parity accuracy. For
-    n2 in PACKED_N2 the computation runs in the packed-row block-diagonal
-    form — the SAME K=128 contraction the Pallas kernels perform — so
-    fused-vs-staged byte-identity holds by construction (see
-    packed_encode_operator_split).
+    the passes of an f32 HIGHEST product at the same oracle-parity
+    accuracy. For n2 in PACKED_N2 the computation runs in the packed-row
+    block-diagonal form (see packed_encode_operator_split).
     """
     r = None
     if cfg.adaptive:
@@ -223,9 +221,8 @@ def encode_blocks(
         # quantize divides by (q * s) for AC -> multiply the q-normalized
         # coefficient by 1/s (quantization.c:190, :124). Applied as ONE
         # multiply + select (never an add/mul chain a compiler could fuse
-        # into an FMA) so XLA and the Mosaic kernels round identically —
-        # the byte-identity contract between the einsum path and the fused
-        # Pallas encode kernel depends on this.
+        # into an FMA) so every backend rounds identically — containers
+        # must not depend on the device that encoded them.
         r = 1.0 / s
     n2 = cfg.n2
     if n2 in PACKED_N2:
@@ -239,9 +236,9 @@ def encode_blocks(
             y = jnp.where(jnp.asarray(packed_ac_mask(n2)) != 0, y * r2, y)
         y = y.reshape(y.shape[0] * bpr, n2)[:B]
     elif n2 == 256:
-        # 16x16: explicit K=128 split so the contraction association is
-        # IDENTICAL to the fused kernel's quadrant matmuls (a K=256 dot's
-        # f32 accumulation tree is not guaranteed to round the same way)
+        # 16x16: explicit K=128 halves fix the contraction association (a
+        # K=256 dot's f32 accumulation tree is not guaranteed to round the
+        # same way on every backend)
         m0, m1, m2, b = tables.fused_encode_operator_split(
             cfg, chroma=chroma
         )
@@ -286,8 +283,7 @@ def decode_blocks(
     Returns (B, N^2) uint8 flattened pixel blocks.
 
     For n2 in PACKED_N2 the dequant+IDCT runs in the packed-row
-    block-diagonal form, sharing the exact contraction with
-    transform_pallas.decode_blocks_pallas (same tie rounding).
+    block-diagonal form, mirroring encode_blocks.
     """
     s = None
     if cfg.adaptive:

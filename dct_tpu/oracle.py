@@ -2,7 +2,7 @@
 linked behind a flat-array ABI — see native/oracle_driver.c).
 
 The oracle is a *test dependency only*: it defines what "reference behavior"
-means (including bug B1) so the TPU pipeline can be checked for bit-exact
+means (including bug B1) so the JAX pipeline can be checked for bit-exact
 integer-domain parity. Production code never imports this module.
 
 Builds lazily via ``make -C native`` on first use; callers should treat

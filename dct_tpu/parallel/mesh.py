@@ -1,16 +1,17 @@
 """Device meshes for sharded encode/decode.
 
 The reference has zero concurrency (SURVEY.md section 2, "parallelism:
-ABSENT"); the codec's parallel axes on TPU are:
+ABSENT"); the codec's parallel axes on a device mesh are:
 
   * ``data``   — independent frames (the batch axis; the codec's DP)
   * ``stripe`` — tile stripes within a frame (spatial/context parallelism:
     8x8 blocks share no pixels, so stripes need NO halo exchange — only
     bitstream-offset metadata crosses chips, SURVEY.md section 5.7/5.8)
 
-Multi-host initialization wraps jax.distributed; collectives ride ICI
-within a host and DCN across hosts exactly as XLA lays them out from the
-mesh axes.
+Multi-host initialization wraps jax.distributed; collectives (NCCL on
+GPUs: NVLink within a host, the network across hosts) follow the mesh
+axes as XLA lays them out. The mesh follows the algorithm alone — no
+interconnect topology is assumed.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ Design (SURVEY.md sections 5.7-5.8, BASELINE.json configs 4-5):
   * Histogram globalization is the only cross-device reduction in the
     analyze phase: an integer psum, order-independent by construction.
   * The offsets table is derived from per-stripe bit lengths exchanged via
-    all_gather — exclusive cumsum, the TPU-native replacement for what a
-    multi-node codec would do with an MPI/NCCL allgather of stream sizes.
+    all_gather (NCCL on GPUs) — exclusive cumsum, what a multi-node codec
+    would do with an MPI allgather of stream sizes.
 
 Two operating modes:
   * dynamic tables (default): two sharded dispatches with a 64-byte host
@@ -41,6 +41,7 @@ from dct_tpu.config import CodecConfig
 from dct_tpu.models import codec as _codec
 from dct_tpu.ops import bitstream as bs
 from dct_tpu.ops import huffman as hf
+from dct_tpu.ops import entropy_decode as ed
 from dct_tpu.parallel import mesh as meshlib
 
 
@@ -326,9 +327,9 @@ def plane_sse_chunks_sharded(
 ) -> jax.Array:
     """Sharded distortion probe: the mesh analog of
     rate_control._plane_sse_chunks. Each device round-trips ITS stripe
-    rows through the production quantize/reconstruct pair (shard_map —
-    on TPU the pair is a Mosaic kernel, which GSPMD cannot partition) and
-    reduces to int32 column-chunk partial sums; rows past the real image
+    rows through the production quantize/reconstruct pair (shard_map,
+    so no stripe row leaves its device) and reduces to int32
+    column-chunk partial sums; rows past the real image
     height (grid pad + mesh-pad stripes) and columns past the width are
     masked to zero instead of cropped, which sums to the identical exact
     integer. Output: (ph, ceil(w/4096)) int32, row-sharded."""
@@ -348,7 +349,6 @@ def plane_sse_chunks_sharded(
         mesh=mesh,
         in_specs=P(meshlib.STRIPE_AXIS, None),
         out_specs=P(meshlib.STRIPE_AXIS, None),
-        check_vma=False,  # Pallas out_shapes carry vma=None (see encode)
     )
     def f(local_img):
         from dct_tpu.models.rate_control import _plane_roundtrip
@@ -390,7 +390,6 @@ def plane_roundtrip_sharded(
         mesh=mesh,
         in_specs=P(meshlib.STRIPE_AXIS, None),
         out_specs=P(meshlib.STRIPE_AXIS, None),
-        check_vma=False,  # Pallas out_shapes carry vma=None (see encode)
     )
     def f(local_img):
         from dct_tpu.models.rate_control import _plane_roundtrip
@@ -422,17 +421,14 @@ def _encode_step_sharded(
 ):
     """shard_map'd static-table encode: each device packs ITS stripes.
 
-    shard_map (not GSPMD auto-partitioning) is load-bearing twice over:
-    (1) stripes are independent by design, but the staged packer's
-    scatter-add has data-dependent indices, and the SPMD partitioner
-    cannot prove they stay shard-local — it lowers a sharded scatter to
+    shard_map (not GSPMD auto-partitioning) is load-bearing: stripes
+    are independent by design, but the staged packer's scatter-add has
+    data-dependent indices, and the SPMD partitioner cannot prove they
+    stay shard-local — it lowers a sharded scatter to
     scatter-into-replicated + all-reduce (2 x ~123 KB for a 16-stripe
     1080p plane, measured in tests/test_collectives.py). Inside
-    shard_map the scatter is a plain single-device op. (2) a Mosaic
-    kernel under GSPMD has no partitioning rules at all; under shard_map
-    each device runs the fused kernel on its local stripe rows — the
-    standard pallas-under-shard_map composition. Zero collectives
-    either way (asserted by tests/test_collectives.py).
+    shard_map the scatter is a plain single-device op, and the step has
+    zero collectives (asserted by tests/test_collectives.py).
     """
     n_dev = mesh.shape[meshlib.STRIPE_AXIS]
     if n_stripes % n_dev:
@@ -460,11 +456,6 @@ def _encode_step_sharded(
         mesh=mesh,
         in_specs=P(meshlib.STRIPE_AXIS, None),
         out_specs=out_specs,
-        # jax 0.9's check_vma=True rejects pl.pallas_call outputs (their
-        # ShapeDtypeStruct carries vma=None), and every TPU-backend path
-        # in encode_step is Pallas (fused kernel / pack kernel). The body
-        # is embarrassingly parallel — no cross-shard values to check.
-        check_vma=False,
     )
     def f(local_img):
         return _codec.encode_step(local_img, cfg, local_stripes, chroma)
@@ -505,120 +496,66 @@ def encode_image_sharded(
     return cont.serialize(c)
 
 
+_ROWS = P(meshlib.STRIPE_AXIS, None)
+
+
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "cfg", "chroma", "edp_statics", "mesh", "n_loc", "bh_loc", "bw",
-    ),
+    jax.jit, static_argnames=("cfg", "chroma", "mesh", "n_loc", "bh_loc", "bw")
 )
 def _device_decode_step_sharded(
-    arrays, var_codes, cfg: CodecConfig, chroma: bool, edp_statics,
-    mesh: Mesh, n_loc: int, bh_loc: int, bw: int,
+    arrays, var_codes, cfg: CodecConfig, chroma: bool, mesh: Mesh,
+    n_loc: int, bh_loc: int, bw: int,
 ):
     """shard_map'd DEVICE entropy decode + reconstruct: each device runs
-    the Pallas decode kernel (ops/entropy_decode_pallas.py) on ITS
-    stripes' units/geometry, then dc-unpredict + dequant+IDCT + image
-    assembly locally — zero collectives (stripes are independent
-    substreams; only the tiny canonical tables are replicated). The
-    sharded mirror of codec._device_decode_plane_step, and the piece
-    VERDICT r4 item 6 asked for: a v2 container's entropy stage never
-    runs on the host for any mesh shape."""
-    from dct_tpu.models.codec import _fused_decode, dc_reconstruct
-    from dct_tpu.ops import blocks as blk
-    from dct_tpu.ops import entropy_decode_pallas as edp
-    from dct_tpu.ops import quant
-
-    n = cfg.block_size
-    in_specs = (
-        (P(meshlib.STRIPE_AXIS, None),) * 3 + (P(),) * 9,
-        P(meshlib.STRIPE_AXIS, None) if cfg.adaptive else P(),
-    )
+    the entropy decoder (ops/entropy_decode.py) on ITS stripes' words and
+    block lengths, then dc-unpredict + dequant+IDCT + image assembly
+    locally — zero collectives (stripes are independent substreams; only
+    the tiny canonical tables are replicated). The sharded mirror of
+    codec._device_decode_step: a v2 container's entropy stage never runs
+    on the host for any mesh shape."""
+    in_specs = ((_ROWS, _ROWS) + (P(),) * 4, _ROWS)
 
     @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=in_specs,
-        out_specs=P(meshlib.STRIPE_AXIS, None),
-        check_vma=False,  # Pallas out_shapes carry vma=None (see encode)
+        shard_map, mesh=mesh, in_specs=in_specs, out_specs=_ROWS
     )
     def step(ops, vc):
-        zz = edp.decode_call(*ops, **dict(edp_statics))
-        if cfg.dc_prediction:
-            zz = dc_reconstruct(zz, n_loc)
-        scale = None
-        if cfg.adaptive:
-            scale = quant.scale_from_variance_code(vc.reshape(-1))
-        px = _fused_decode(zz, cfg, scale, chroma)
-        return blk.blocks_to_image(px, bh_loc * n, bw * n, n)
+        zz = ed.decode_blocks(*ops, **_codec._entropy_statics(cfg))
+        return _codec._reconstruct(
+            zz, vc.reshape(-1), cfg, chroma, n_loc, bh_loc, bw
+        )
 
     return step(arrays, var_codes)
 
 
-def _device_decode_plane_sharded(
-    p: cont.PlaneData, cfg: CodecConfig, mesh: Mesh, chroma: bool,
-    table, mode: str, run_table, bh: int, bw: int, n_stripes: int,
-    bps: int,
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "chroma", "mesh", "n_loc", "bh_loc", "bw")
+)
+def _decode_step_sharded(
+    zz, var_codes, cfg: CodecConfig, chroma: bool, mesh: Mesh, n_loc: int,
+    bh_loc: int, bw: int,
 ):
-    """Indexed (container v2) plane -> row-sharded u8 plane with the
-    entropy stage ON DEVICE under shard_map. None -> caller's host path.
+    """shard_map'd reconstruct of host-decoded coefficients: (NB, n2)
+    coefficients and (n_stripes, bps) variance codes, both stripe-sharded
+    -> row-sharded u8 image. Blocks share no pixels and DC prediction is
+    stripe-local, so each device reconstructs its own block rows with
+    zero collectives."""
 
-    Mesh-pad stripes (all-zero units, zero-bit geometry) make the stripe
-    count divide the mesh; their lanes are born inactive (bit length 0)
-    so the decode loop never runs for them, and their zero coefficients
-    decode to blank rows that the final crop discards."""
-    prep = _codec._device_decode_prep(
-        p, cfg, table, mode, n_stripes, bps, run_table
+    @functools.partial(
+        shard_map, mesh=mesh, in_specs=(_ROWS, _ROWS), out_specs=_ROWS
     )
-    if prep is None:
-        return None
-    arrays, statics = prep
-    n_dev = mesh.shape[meshlib.STRIPE_AXIS]
-    ns_pad = -(-n_stripes // n_dev) * n_dev
-    pad = ns_pad - n_stripes
-    units, geom, bases, *tabs = arrays
-    if pad:
-        units = np.concatenate(
-            [units, np.zeros((pad,) + units.shape[1:], units.dtype)]
+    def step(z, vc):
+        return _codec._reconstruct(
+            z, vc.reshape(-1), cfg, chroma, n_loc, bh_loc, bw
         )
-        geom = np.concatenate(
-            [geom, np.zeros((pad,) + geom.shape[1:], geom.dtype)]
-        )
-        bases = np.concatenate(
-            [bases, np.zeros((pad,) + bases.shape[1:], bases.dtype)]
-        )
-    if cfg.adaptive:
-        codes = np.asarray(p.variance_codes).reshape(n_stripes, bps)
-        if pad:
-            codes = np.concatenate(
-                [codes, np.zeros((pad, bps), codes.dtype)]
-            )
-        vc = jax.device_put(
-            jnp.asarray(codes),
-            NamedSharding(mesh, P(meshlib.STRIPE_AXIS, None)),
-        )
-    else:
-        vc = jnp.zeros((1, 1), jnp.uint8)
-    stripe_sh = NamedSharding(mesh, P(meshlib.STRIPE_AXIS, *(
-        (None,) * (units.ndim - 1)
-    )))
-    ops = (
-        jax.device_put(jnp.asarray(units), stripe_sh),
-        jax.device_put(
-            jnp.asarray(geom), NamedSharding(mesh, P(meshlib.STRIPE_AXIS, None, None, None))
-        ),
-        jax.device_put(
-            jnp.asarray(bases), NamedSharding(mesh, P(meshlib.STRIPE_AXIS, None, None, None))
-        ),
-        *(jnp.asarray(t) for t in tabs),
-    )
-    rows_per_stripe = bh // n_stripes
-    img = _device_decode_step_sharded(
-        ops, vc, cfg=cfg, chroma=chroma,
-        edp_statics=tuple(sorted(statics.items())),
-        mesh=mesh, n_loc=ns_pad // n_dev,
-        bh_loc=(ns_pad // n_dev) * rows_per_stripe, bw=bw,
-    )
-    return img[: p.height, : p.width]
+
+    return step(zz, var_codes)
+
+
+def _pad_stripes(x: np.ndarray, n: int) -> np.ndarray:
+    """Append n all-zero rows (mesh-pad stripes) along axis 0."""
+    if not n:
+        return x
+    return np.concatenate([x, np.zeros((n,) + x.shape[1:], x.dtype)])
 
 
 def _decode_plane_sharded(
@@ -627,117 +564,61 @@ def _decode_plane_sharded(
     """One container plane -> u8 pixel plane on the mesh (row-sharded).
 
     With a decode index (container v2) the entropy stage runs ON DEVICE
-    under shard_map (_device_decode_plane_sharded). Otherwise entropy
-    decode runs on the host (per-stripe, C++ thread pool); the
-    coefficient grid is placed with stripes over the mesh's stripe axis and
-    ONE sharded dequant+IDCT dispatch reconstructs pixel rows in place — no
-    cross-device traffic at all (8x8 blocks share no pixels, SURVEY.md
-    section 5.7)."""
-    from dct_tpu.models.codec import _decode_stripes, _padded_grid
-    from dct_tpu.ops import quant
-
-    bh, bw, n_stripes = _padded_grid(p.height, p.width, cfg)
+    under shard_map. Otherwise entropy decode runs on the host
+    (per-stripe, C++ thread pool) and the coefficient grid is placed
+    with stripes over the mesh's stripe axis. Either way ONE sharded
+    dispatch reconstructs pixel rows in place — no cross-device traffic
+    at all (blocks share no pixels, SURVEY.md section 5.7). Mesh-pad
+    stripes (added so the stripe count divides the mesh) are all zero:
+    zero-length blocks the device decoder never touches, blank rows the
+    final crop discards."""
+    bh, bw, n_stripes = _codec._padded_grid(p.height, p.width, cfg)
     bps = (bh // n_stripes) * bw
-    mode = cfg.huffman_mode if cfg.use_huffman else "none"
-    table = hf.CanonicalTable(p.table_lengths) if mode != "none" else None
-    run_table = (
-        hf.CanonicalTable(p.run_table_lengths) if cfg.coded_runs else None
-    )
-
-    if _codec._device_decode_ok(p, cfg):
-        img = _device_decode_plane_sharded(
-            p, cfg, mesh, chroma, table, mode, run_table, bh, bw,
-            n_stripes, bps,
-        )
-        if img is not None:
-            return img
-
-    zz = _decode_stripes(
-        p, cfg, table, mode, n_stripes, bps, run_table
-    )  # (NB, n2)
-    if cfg.dc_prediction:
-        zz = _codec.dc_reconstruct(zz, n_stripes)
-    block_sharding = NamedSharding(mesh, P(meshlib.STRIPE_AXIS, None))
+    mode, table, run_table = _codec._plane_tables(p, cfg)
     n_dev = mesh.shape[meshlib.STRIPE_AXIS]
-    nb = zz.shape[0]
-    pad = (-nb) % (n_dev * bps)
-    if pad:  # replicate-edge blocks so the stripe axis divides the mesh
-        zz = np.concatenate([zz, np.zeros((pad, zz.shape[1]), zz.dtype)])
-    zz_dev = jax.device_put(jnp.asarray(zz), block_sharding)
-    scale = None
+    ns_pad = -(-n_stripes // n_dev) * n_dev
+    pad = ns_pad - n_stripes
+    n_loc = ns_pad // n_dev
+    geom = dict(
+        cfg=cfg, chroma=chroma, mesh=mesh, n_loc=n_loc,
+        bh_loc=n_loc * (bh // n_stripes), bw=bw,
+    )
+    rows = NamedSharding(mesh, _ROWS)
     if cfg.adaptive:
-        codes = np.asarray(p.variance_codes)
-        if pad:
-            codes = np.concatenate([codes, np.zeros(pad, codes.dtype)])
-        scale = quant.scale_from_variance_code(
-            jax.device_put(jnp.asarray(codes), NamedSharding(mesh, P(meshlib.STRIPE_AXIS)))
-        )
+        vc = np.asarray(p.variance_codes, np.uint8).reshape(n_stripes, bps)
+    else:
+        vc = np.zeros((n_stripes, 1), np.uint8)
+    vc = jax.device_put(_pad_stripes(vc, pad), rows)
 
-    bh_tot = bh + pad // bw  # padded block rows (divisible by n_dev)
-    step = _decode_step_sharded(cfg, mesh, bh_tot, bw, chroma,
-                                with_scale=scale is not None)
-    img = step(zz_dev, scale) if scale is not None else step(zz_dev)
+    arrays = _codec._device_decode_prep([p], table, mode, run_table)
+    if arrays is not None:
+        words, block_bits, *tabs = arrays
+        ops = (
+            jax.device_put(_pad_stripes(words, pad), rows),
+            jax.device_put(_pad_stripes(block_bits, pad), rows),
+            *(jnp.asarray(t) for t in tabs),
+        )
+        img = _device_decode_step_sharded(ops, vc, **geom)
+    else:
+        zz = _codec._decode_stripes(
+            p, cfg, table, mode, n_stripes, bps, run_table
+        )  # (NB, n2)
+        zz = jax.device_put(_pad_stripes(zz, pad * bps), rows)
+        img = _decode_step_sharded(zz, vc, **geom)
     return img[: p.height, : p.width]
 
 
-def _decode_step_sharded(
-    cfg: CodecConfig, mesh: Mesh, bh_tot: int, bw: int, chroma: bool,
-    with_scale: bool,
-):
-    """Jitted shard_map'd dequant+IDCT step: (NB, n2) coeffs (stripe-
-    sharded) -> row-sharded u8 image of bh_tot x bw blocks.
-
-    shard_map, not GSPMD sharding constraints: on the TPU backend
-    _fused_decode is a Mosaic kernel, and a Pallas custom call has no
-    GSPMD partitioning rules — the partitioner would replicate it (or
-    reject it), exactly the failure mode the encode side documents.
-    Blocks share no pixels, so each device reconstructs its own block
-    rows and the output is row-sharded with zero collectives. Also
-    exported chiplessly by benchmarks/mosaic_lowering_check.py."""
-    from dct_tpu.models.codec import _fused_decode
-    from dct_tpu.ops import blocks as blk
-
-    n = cfg.block_size
-    n_dev = mesh.shape[meshlib.STRIPE_AXIS]
-    in_specs = (P(meshlib.STRIPE_AXIS, None),)
-    if with_scale:
-        in_specs += (P(meshlib.STRIPE_AXIS),)
-
-    @jax.jit
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=in_specs,
-        out_specs=P(meshlib.STRIPE_AXIS, None),
-        check_vma=False,  # Pallas out_shapes carry vma=None (see encode)
-    )
-    def step(z, s=None):
-        px = _fused_decode(z, cfg, s, chroma)
-        return blk.blocks_to_image(px, (bh_tot // n_dev) * n, bw * n, n)
-
-    return step
-
-
-def decode_image_sharded(
-    data: bytes, mesh: Mesh, use_pallas: bool | None = None
-) -> jax.Array:
+def decode_image_sharded(data: bytes, mesh: Mesh) -> jax.Array:
     """Sharded decode: container bytes -> u8 pixels on the mesh.
 
     The mirror of encode_image_sharded. Grayscale containers return a
     row-sharded (H, W) plane; color containers decode each plane sharded,
     then upsample + YCbCr->RGB in one jitted dispatch (XLA inserts any
     resharding the differently-sized chroma grids need). np.asarray() the
-    result to land on host.
-
-    use_pallas is an execution preference, NOT wire state (the container
-    flags carry only semantic knobs — see ImageCodec.decode): None means
-    kernels on TPU, einsum elsewhere. With the Pallas path active and a
-    container v2 decode index present, the ENTROPY stage also runs on
-    device under shard_map (_device_decode_plane_sharded)."""
+    result to land on host. A container v2 decode index sends the
+    entropy stage to the devices too."""
     c = cont.deserialize(data)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    cfg = c.config.replace(use_pallas=use_pallas)
+    cfg = c.config
     if cfg.chroma == "gray":
         return _decode_plane_sharded(c.planes[0], cfg, mesh)
 
@@ -801,7 +682,6 @@ def _video_hist_step(
         mesh=mesh,
         in_specs=P(meshlib.DATA_AXIS, meshlib.STRIPE_AXIS, None),
         out_specs=out_specs,
-        check_vma=False,  # Pallas out_shapes carry vma=None (see encode)
     )
     def step(fr):
         def one(im):
@@ -889,7 +769,6 @@ def _video_encode_step(
             mesh=mesh,
             in_specs=P(meshlib.DATA_AXIS, meshlib.STRIPE_AXIS, None),
             out_specs=out_specs,
-            check_vma=False,
         )
         def step(fr):
             return jax.vmap(
@@ -910,7 +789,6 @@ def _video_encode_step(
             *table_spec, *run_spec,
         ),
         out_specs=out_specs,
-        check_vma=False,
     )
     def step(fr, lengths, codes, run_lengths, run_codes):
         def one(im):
@@ -957,7 +835,6 @@ def _video_bits_step(
             P(meshlib.DATA_AXIS, meshlib.STRIPE_AXIS),
             P(meshlib.DATA_AXIS, meshlib.STRIPE_AXIS),
         ),
-        check_vma=False,
     )
     def step(fr, lengths, codes, run_lengths, run_codes):
         def one(im):
@@ -1248,9 +1125,6 @@ def _batch_step(cfg: CodecConfig, n_stripes: int, mesh: Mesh):
         mesh=mesh,
         in_specs=P(meshlib.DATA_AXIS, meshlib.STRIPE_AXIS, None),
         out_specs=ps_spec,
-        # see _encode_step_sharded: pallas_call under check_vma=True is
-        # rejected on the TPU backend (vma=None out_shapes)
-        check_vma=False,
     )
     def step(fr):
         packed = jax.vmap(

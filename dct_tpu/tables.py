@@ -7,8 +7,8 @@ Here they are pure functions of :class:`~dct_tpu.config.CodecConfig`, built
 once in float64 NumPy on the host, cached, and closed over by jitted
 functions as constants.
 
-TPU-first design — the fused Kronecker operator
------------------------------------------------
+The fused Kronecker operator
+----------------------------
 For a block ``X`` (N x N), the 2D DCT is ``Y = D @ X @ D.T`` (two matmuls in
 the reference, dct.c:52-74). Flattening blocks row-major to length-N^2
 vectors, this is a single linear map::
@@ -16,7 +16,7 @@ vectors, this is a single linear map::
     vec(D X D^T) = (D (x) D) vec(X)        ((x) = Kronecker product)
 
 so a *batch* of B blocks becomes ONE ``(B, N^2) @ (N^2, N^2)`` matmul — the
-shape the MXU wants. On top of that single matrix we fold, column by column:
+shape matrix units want. On top of that single matrix we fold, column by column:
 
   * the zigzag permutation (entropy.c:158-181) — permute columns, so the
     matmul emits coefficients already in zigzag order;
@@ -208,19 +208,16 @@ def fused_encode_operator(cfg: CodecConfig, chroma: bool = False):
 def fused_encode_operator_split(cfg: CodecConfig, chroma: bool = False):
     """3-way bf16 split of the f32 encode operator: (m0, m1, m2, b_enc).
 
-    m0 + m1 + m2 reconstructs ~24 mantissa bits of M_enc — the same
-    effective operator precision the MXU's HIGHEST mode rebuilds from SIX
-    bf16 passes by splitting BOTH operands 3x. Pixels are u8, and every
-    integer <= 255 is EXACT in bf16 (8 significant bits), so the input
-    needs no split at all: THREE default-precision bf16 passes
+    m0 + m1 + m2 reconstructs ~24 mantissa bits of M_enc — the operator
+    precision of an f32 product. Pixels are u8, and every integer <= 255
+    is EXACT in bf16 (8 significant bits), so the input needs no split at
+    all: THREE default-precision bf16 passes
 
         y = x_bf16 @ m0 + x_bf16 @ m1 + x_bf16 @ m2 + b    (f32 accum)
 
-    match the f32-HIGHEST einsum against the float64 oracle (0 mismatches
-    in 65,536 coefficients, benchmarks/dct_experiments.py) at ~2.2x the
-    measured throughput. Every encode path (XLA einsum, transform_pallas,
-    fused_encode_pallas) MUST use this exact sum order — the byte-identity
-    contract between them depends on it.
+    match the float64 oracle except at exact .5 ties
+    (tests/test_parity.py). Every encode path MUST use this exact sum
+    order — byte-identical containers across paths depend on it.
     """
     import ml_dtypes  # numpy bf16 (ships with jax); keeps tables jax-free
 

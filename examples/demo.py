@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """End-to-end tour of the dct_tpu API.
 
-Runs on whatever backend jax picks (TPU in production; CPU works too —
-kernels fall back to interpret mode / the staged XLA pipeline, producing
-byte-identical containers). Covers:
+Runs on whatever backend jax picks (a GPU, or the CPU; containers are
+byte-identical across backends). Covers:
 
   1. one-liner encode/decode (grayscale + RGB)
   2. config knobs (quality, adaptive, static tables, stripe size)
@@ -33,8 +32,9 @@ def main() -> int:
     import dct_tpu
     from dct_tpu.models import codec, recovery
     from dct_tpu.models.video import VideoCodec
-    from dct_tpu.utils import image_io, metrics
+    from dct_tpu.utils import compile_cache, image_io, metrics
 
+    compile_cache.configure()
     print(f"backend: {jax.default_backend()}, devices: {len(jax.devices())}")
 
     # -- 1. one-liners ------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Production-serving patterns: the codec as a data-plane component.
 
-Three shapes the framework is built for (run on TPU or CPU):
+Three shapes the framework is built for (runs on a GPU or the CPU):
 
   1. ingest   — a stream of frames arriving one at a time, encoded with
                 static tables (ONE device dispatch per frame, no host
@@ -15,7 +15,7 @@ Three shapes the framework is built for (run on TPU or CPU):
                 (bounded device memory, batch-global tables), then
                 spot-checked with the per-stripe integrity scan.
 
-Usage: python examples/serving.py  (add PYTHONPATH=/root/repo)
+Usage: python examples/serving.py
 """
 
 from __future__ import annotations
@@ -36,14 +36,13 @@ from dct_tpu import container as cont
 from dct_tpu.config import CodecConfig
 from dct_tpu.models import codec, recovery
 from dct_tpu.models.video import VideoCodec
-from dct_tpu.utils import image_io, metrics
+from dct_tpu.utils import compile_cache, image_io, metrics
 
 
 def ingest_stream(frames: np.ndarray) -> list[bytes]:
     """Frame-at-a-time encode: static tables = one dispatch per frame."""
     cfg = CodecConfig(
         quality=60, static_tables=True, coded_runs=True, dc_prediction=True,
-        use_pallas=jax.default_backend() == "tpu",
     )
     ic = codec.ImageCodec(cfg)
     ic.encode(frames[0])  # warmup: compile once, outside the timed loop
@@ -89,6 +88,7 @@ def archive_batch(frames: np.ndarray) -> None:
 
 
 def main() -> int:
+    compile_cache.configure()
     print(f"backend: {jax.default_backend()}")
     frames = np.stack(
         [image_io.synthetic_image(240, 320, "photo", seed=s) for s in range(8)]

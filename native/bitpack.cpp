@@ -1,6 +1,6 @@
 // bitpack.cpp — native bitstream codec for dct_tpu.
 //
-// The encode side packs bits on the TPU (scatter-based, ops/bitstream.py);
+// The encode side packs bits on the device (scatter-based, ops/bitstream.py);
 // this library supplies the host-side pieces that are inherently serial per
 // stream: canonical-Huffman DECODE of stripe substreams (parallelized across
 // stripes with a thread pool) and a reference bit PACKER used for

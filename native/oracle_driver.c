@@ -6,7 +6,7 @@
  * read-only and is never vendored here) and exposes the reference's
  * ragged-pointer API (double** / int**) as flat row-major buffers that
  * ctypes/NumPy can call. Used only as a golden-parity oracle by the test
- * suite and benchmark baseline; nothing in the production TPU path touches
+ * suite and benchmark baseline; nothing in the production codec path touches
  * this.
  *
  * Reference entry points exercised: dct_init/dct_forward/dct_inverse

@@ -27,7 +27,7 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from dct_tpu.config import CodecConfig
-from dct_tpu.models import codec
+from dct_tpu.ops import transform
 from dct_tpu.parallel import mesh as meshlib
 from dct_tpu.parallel import shard_encode
 
@@ -164,7 +164,7 @@ class TestDynamicTableCollectives:
 
         @jax.jit
         def step(z):
-            px = codec._fused_decode(z, cfg, None, False)
+            px = transform.decode_blocks(z, cfg)
             px = jax.lax.with_sharding_constraint(px, sh)
             return blk.blocks_to_image(px, bh * n, bw * n, n)
 

@@ -15,8 +15,8 @@ Contracts pinned here:
   * sharded encode stays byte-identical to single-device for every mesh;
   * sharded decode, recovery (verify/repair/region decode), and video all
     invert the prediction;
-  * the fused Pallas kernel implements the DPCM in-kernel on TPU
-    (byte-identity pinned in test_fused_encode.py).
+  * the device packer writes the DPCM deltas byte-identically to the
+    host reference packer (test_device_packer.py).
 """
 
 from __future__ import annotations
@@ -94,16 +94,6 @@ def test_flag_survives_wire_format(image):
     c = cont.deserialize(data)
     assert c.config.dc_prediction
     assert c.config.coded_runs
-
-
-def test_fused_kernel_handles_dc_prediction():
-    # the fused Pallas kernel implements the DPCM in-kernel (byte-identity
-    # vs the staged pipeline is pinned in test_fused_encode.py)
-    cfg = CodecConfig(use_pallas=True, dc_prediction=True)
-    import jax
-
-    expected = jax.default_backend() == "tpu"
-    assert codec._fused_kernel_ok(cfg) == expected
 
 
 @pytest.mark.parametrize("n_dev", [1, 2, 4, 8])

@@ -1,14 +1,14 @@
-"""Device entropy decoder (ops/entropy_decode_pallas.py) + the container
-v2 decode index (cfg.decode_index).
+"""Device entropy decoder (ops/entropy_decode.py) + the container v2
+decode index (cfg.decode_index).
 
 Contracts:
-  * both encode paths (fused kernel bbits output, staged chunk-length
-    sums) emit the SAME per-block bit index, and it sums to stripe_bits;
+  * the per-block bit index equals the staged chunk-length sums, and it
+    sums to stripe_bits;
   * container v2 round-trips the index and rejects hostile ones;
-  * the device decoder's pixels are IDENTICAL to the host decoders'
-    across the mode lattice (the kernel runs in interpret mode on CPU,
-    forced through the production decode path via the
-    codec._FORCE_DEVICE_DECODE hook);
+  * decode_to_device (device entropy decoder for indexed containers)
+    gives pixels IDENTICAL to decode() (host decoders) across the mode
+    lattice and block sizes;
+  * tables the device decoder cannot represent reach the host decoder;
   * repair keeps an indexed container consistent.
 """
 
@@ -26,15 +26,25 @@ from dct_tpu.utils import image_io
 
 
 @pytest.fixture
-def force_device_decode(monkeypatch):
-    monkeypatch.setattr(codec, "_FORCE_DEVICE_DECODE", True)
+def device_path(monkeypatch):
+    """Counts device entropy decodes, so an identity check against the
+    host decoder cannot pass vacuously through a host fallback."""
+    calls = []
+    orig = codec._device_decode_step
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(codec, "_device_decode_step", spy)
+    return calls
 
 
-def _roundtrip_pair(im, cfg):
+def _host_and_device(im, cfg):
     data = codec.ImageCodec(cfg).encode(np.asarray(im))
     host = codec.ImageCodec(cfg).decode(data)
     dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
-    return data, host, dev
+    return host, dev
 
 
 @pytest.mark.parametrize(
@@ -48,73 +58,56 @@ def _roundtrip_pair(im, cfg):
         ("none", True, False, False),
     ],
 )
-def test_device_decode_matches_host(
-    force_device_decode, mode, runs, dc, adaptive
-):
+def test_device_decode_matches_host(device_path, mode, runs, dc, adaptive):
     im = image_io.synthetic_image(40, 72, "photo", seed=3)
     cfg = CodecConfig(
         quality=40, huffman_mode=mode, coded_runs=runs, dc_prediction=dc,
-        adaptive=adaptive, decode_index=True, use_pallas=True,
+        adaptive=adaptive, decode_index=True,
     )
-    data = codec.ImageCodec(cfg).encode(np.asarray(im))
-    # host reference decoded WITHOUT the force hook
-    codec._FORCE_DEVICE_DECODE = False
-    host = codec.ImageCodec(cfg).decode(data)
-    codec._FORCE_DEVICE_DECODE = True
-    dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
+    host, dev = _host_and_device(im, cfg)
+    assert device_path
     np.testing.assert_array_equal(host, dev)
 
 
-@pytest.mark.parametrize("n", [4, 16])
-def test_device_decode_block_sizes(force_device_decode, n):
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_device_decode_block_sizes(device_path, n):
     im = image_io.synthetic_image(3 * n, 7 * n + 3, "photo", seed=n)
     cfg = CodecConfig(
-        block_size=n, quality=40, decode_index=True, use_pallas=True,
-        coded_runs=n <= 8,
+        block_size=n, quality=40, decode_index=True, coded_runs=n <= 8,
     )
-    data = codec.ImageCodec(cfg).encode(np.asarray(im))
-    codec._FORCE_DEVICE_DECODE = False
-    host = codec.ImageCodec(cfg).decode(data)
-    codec._FORCE_DEVICE_DECODE = True
-    dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
+    host, dev = _host_and_device(im, cfg)
+    assert device_path
     np.testing.assert_array_equal(host, dev)
 
 
-def test_device_decode_wide_image_multichunk(force_device_decode):
-    """Regression: stripes wider than 128 blocks split into several grid
-    cells, and every cell past the first has a nonzero 128-aligned region
-    base. The kernel's window fetch subtracted the REGION-RELATIVE first
-    unit from the ABSOLUTE bit cursor, so every block in chunk >= 1
-    decoded garbage (caught on real hardware at 1080p, round 5 — every
-    prior test image was < 1024 px wide)."""
+def test_device_decode_wide_image_multichunk(device_path):
+    """Stripes of 256 blocks (2048 px): every block's cursor starts deep
+    into its stripe's words (regression guard from the previous decoder,
+    which mis-addressed blocks past the first 128 of a stripe)."""
     im = image_io.synthetic_image(16, 2048, "photo", seed=0)
-    cfg = CodecConfig(quality=50, decode_index=True, use_pallas=True)
-    data = codec.ImageCodec(cfg).encode(np.asarray(im))
-    codec._FORCE_DEVICE_DECODE = False
-    host = codec.ImageCodec(cfg).decode(data)
-    codec._FORCE_DEVICE_DECODE = True
-    dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
+    cfg = CodecConfig(quality=50, decode_index=True)
+    host, dev = _host_and_device(im, cfg)
+    assert device_path
     np.testing.assert_array_equal(host, dev)
 
 
-def test_block_bits_match_staged_and_fused():
-    """The fused kernel's bbits output == the staged chunk-length sums,
-    and both sum to the stripe bit lengths."""
+def test_block_bits_match_staged_chunk_lengths():
+    """encode_pack's per-block bit index == the staged chunk-length sums,
+    and it sums to the stripe bit lengths."""
     from dct_tpu.ops import blocks as blk
-    from dct_tpu.ops import fused_encode_pallas as fe
     from dct_tpu.ops import huffman as hf
     from dct_tpu.ops import rle, transform
 
-    cfg = CodecConfig(quality=50, static_tables=True, use_pallas=True)
+    cfg = CodecConfig(quality=50, static_tables=True)
     rng = np.random.default_rng(1)
     im = rng.integers(0, 256, (32, 64)).astype(np.uint8)
     px = blk.image_to_blocks(jnp.asarray(im), 8)
     lengths, codes = codec._table_arrays(hf.default_category_table(50))
-    packed, bb = fe.encode_stripes_fused(
-        px, cfg, 4, lengths, codes, return_block_bits=True
-    )
     zz = transform.encode_blocks(px, cfg)
     sym = rle.rle_encode_positional(zz)
+    packed, bb = codec.encode_pack(
+        sym, cfg, 4, lengths, codes, return_block_bits=True
+    )
     _, cl = codec.symbol_chunks_for(sym, cfg, lengths, codes)
     want = np.asarray(jnp.sum(cl, axis=(1, 2))).reshape(4, -1)
     np.testing.assert_array_equal(np.asarray(bb), want)
@@ -189,11 +182,11 @@ def test_container_v2_roundtrip_and_hostile():
     )
 
 
-def test_repair_updates_decode_index(force_device_decode):
+def test_repair_updates_decode_index(device_path):
     from dct_tpu.models import recovery
 
     im = image_io.synthetic_image(48, 64, "photo", seed=5)
-    cfg = CodecConfig(quality=50, decode_index=True, use_pallas=True)
+    cfg = CodecConfig(quality=50, decode_index=True)
     data = codec.ImageCodec(cfg).encode(np.asarray(im))
     c = cont.deserialize(data)
     # corrupt stripe 2's payload, then repair from the source image
@@ -210,33 +203,78 @@ def test_repair_updates_decode_index(force_device_decode):
     fixed = recovery.repair(cont.serialize(c), np.asarray(im), [2])
     assert fixed == data  # byte-identical to a clean encode, index included
     dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(fixed))
-    codec._FORCE_DEVICE_DECODE = False
     host = codec.ImageCodec(cfg).decode(fixed)
+    assert device_path
     np.testing.assert_array_equal(host, dev)
 
 
-def test_unindexed_or_unsupported_falls_back_to_host(force_device_decode):
-    """No index -> host decoder; hostile >16-bit tables -> host decoder
-    (which itself handles them) — never a crash."""
-    im = image_io.synthetic_image(24, 40, "photo", seed=1)
-    cfg = CodecConfig(quality=50, use_pallas=True)  # no decode_index
-    data = codec.ImageCodec(cfg).encode(np.asarray(im))
-    out = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
-    assert out.shape == (24, 40)
-
-    from dct_tpu.ops import entropy_decode_pallas as edp
+def test_unindexed_or_unsupported_falls_back_to_host(device_path):
+    """No index -> host decoder. The device decoder's one format limit
+    (tables_supported): codes over 16 bits, and direct alphabets outside
+    int16, also go to the host decoder (end to end:
+    test_long_code_table_decodes_on_host)."""
+    from dct_tpu.ops import entropy_decode as ed
     from dct_tpu.ops import huffman as hf
 
-    long = np.zeros(32, np.int64)
+    im = image_io.synthetic_image(24, 40, "photo", seed=1)
+    cfg = CodecConfig(quality=50, decode_index=False)
+    data = codec.ImageCodec(cfg).encode(np.asarray(im))
+    out = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
+    assert not device_path
+    np.testing.assert_array_equal(out, codec.ImageCodec(cfg).decode(data))
+
     lengths = np.zeros(32, np.int32)
-    lengths[:2] = [1, 17]  # a 17-bit code: device decoder must decline
-    lengths[2] = 2
-    t = hf.CanonicalTable(lengths)
-    assert not edp.tables_supported(t, None)
-    assert edp.decode_args(
-        np.zeros((1, 128), np.int32), np.zeros((1, 4), np.int64),
-        1, 64, "category", t,
-    ) is None
+    lengths[:3] = [1, 17, 2]  # a 17-bit code
+    assert not ed.tables_supported(hf.CanonicalTable(lengths), None)
+    assert not ed.tables_supported(None, hf.CanonicalTable(lengths))
+    ok = hf.default_category_table(50)
+    assert ed.tables_supported(ok, hf.default_run_table(50))
+    direct = hf.CanonicalTable(np.full(512, 9, np.int32))
+    assert ed.tables_supported(direct, None, vmin=-255)
+    assert not ed.tables_supported(direct, None, vmin=0x7F00)
+
+
+def test_long_code_table_decodes_on_host(device_path):
+    """An indexed container whose valid category table has a 17-bit code
+    (never written by this encoder, legal on the wire) must take the host
+    decoder from decode_to_device, and both routes give the same pixels
+    as the container's standard-table twin."""
+    from dct_tpu.ops import blocks as blk
+    from dct_tpu.ops import bitstream as bs
+    from dct_tpu.ops import huffman as hf
+    from dct_tpu.ops import rle, transform
+
+    im = np.asarray(image_io.synthetic_image(24, 40, "photo", seed=4))
+    cfg = CodecConfig(quality=50, decode_index=True)
+    # categories 0..14 get lengths 1..15, category 15 (unused by this
+    # content) 17 bits: Kraft sum < 1, a valid canonical table
+    lengths = np.array(list(range(1, 16)) + [17], np.int32)
+    table = hf.CanonicalTable(lengths)
+    img = codec.pad_plane_for_encode(im, cfg)
+    zz = transform.encode_blocks(blk.image_to_blocks(img, 8), cfg)
+    sym = rle.rle_encode_positional(zz)
+    assert int(np.abs(np.asarray(zz)).max()) < 1 << 14  # no category 15
+    n_stripes = img.shape[0] // 8
+    packed, bb = codec.encode_pack(
+        sym, cfg, n_stripes, *codec._table_arrays(table),
+        return_block_bits=True,
+    )
+    packed = bs.fetch_packed(packed)
+    plane = cont.PlaneData(
+        width=im.shape[1], height=im.shape[0], table_lengths=lengths,
+        vmin=codec.DIRECT_VMIN, variance_codes=None,
+        stripe_bits=packed.bit_lengths.astype(np.uint32),
+        stripes=bs.stripes_to_bytes(packed),
+        block_bits=np.asarray(bb).reshape(-1).astype(np.uint16),
+    )
+    data = cont.serialize(cont.Container(
+        config=cfg, width=im.shape[1], height=im.shape[0], planes=[plane],
+    ))
+    want = codec.ImageCodec(cfg).decode(codec.ImageCodec(cfg).encode(im))
+    dev = np.asarray(codec.ImageCodec(cfg).decode_to_device(data))
+    assert not device_path
+    np.testing.assert_array_equal(dev, want)
+    np.testing.assert_array_equal(codec.ImageCodec(cfg).decode(data), want)
 
 
 @pytest.mark.parametrize(
@@ -248,9 +286,9 @@ def test_unindexed_or_unsupported_falls_back_to_host(force_device_decode):
     ],
     ids=["plain", "adaptive+runs+dc", "direct"],
 )
-def test_batched_video_device_decode(force_device_decode, kw):
-    """Indexed frame stacks decode in ONE batched device dispatch
-    (codec._device_decode_batch_step, the vmapped Pallas decode kernel)
+def test_batched_video_device_decode(device_path, kw):
+    """Indexed frame stacks decode in ONE batched device dispatch (the
+    frames' stripes stacked along the decoder's stripe axis),
     pixel-identical to the host decoders."""
     from dct_tpu.models.video import VideoCodec
 
@@ -258,10 +296,9 @@ def test_batched_video_device_decode(force_device_decode, kw):
         np.asarray(image_io.synthetic_image(40, 64, "photo", seed=s))
         for s in range(4)
     ])
-    cfg = CodecConfig(quality=45, decode_index=True, use_pallas=True, **kw)
+    cfg = CodecConfig(quality=45, decode_index=True, **kw)
     streams = VideoCodec(cfg).encode(frames)
-    dev = VideoCodec(cfg).decode(streams)
-    codec._FORCE_DEVICE_DECODE = False
+    dev = np.asarray(VideoCodec(cfg).decode_to_device(streams))
+    assert len(device_path) == 1
     host = np.stack([codec.decode(s) for s in streams])
-    codec._FORCE_DEVICE_DECODE = True
     np.testing.assert_array_equal(dev, host)

@@ -110,7 +110,7 @@ class TestHuffman:
 class TestDevicePacker:
     @pytest.mark.parametrize("mode", ("category", "direct", "none"))
     def test_device_matches_host_packer(self, mode):
-        """The TPU scatter packer must produce byte-identical streams to the
+        """The device scatter packer must produce byte-identical streams to the
         sequential host BitWriter."""
         rng = np.random.default_rng(2)
         symbols, _ = _random_symbols(rng, 24)
@@ -209,11 +209,9 @@ class TestDevicePacker:
         for other in outs[1:]:
             assert other == outs[0]
 
-    def test_pallas_packer_matches_reference_packer(self):
-        """The Pallas pack kernel (interpret mode on CPU) is byte-identical
-        to the scatter packer."""
-        from dct_tpu.ops.pack_pallas import pack_chunks_pallas
-
+    def test_scatter_packer_matches_host_packer(self):
+        """The device scatter packer is byte-identical to the host
+        reference packer on a per-image table."""
         rng = np.random.default_rng(11)
         zz = rng.integers(-200, 200, size=(12, 64)).astype(np.int32)
         zz *= rng.uniform(size=zz.shape) < 0.3
@@ -228,8 +226,13 @@ class TestDevicePacker:
         cv = jnp.asarray(np.asarray(cv).reshape(3, -1, 3))
         cl = jnp.asarray(np.asarray(cl).reshape(3, -1, 3))
         cap = 4 * bs.UNITS_PER_BLOCK_WORST
-        want = bs.stripes_to_bytes(bs.pack_chunks(cv, cl, cap))
-        got = bs.stripes_to_bytes(pack_chunks_pallas(cv, cl, cap))
+        got = bs.stripes_to_bytes(bs.pack_chunks(cv, cl, cap))
+        v, r, m = (np.asarray(x) for x in (s.values, s.runs, s.is_sym))
+        want = bs.pack_stripes_host(
+            [(v[i:i + 4][m[i:i + 4]], r[i:i + 4][m[i:i + 4]])
+             for i in range(0, 12, 4)],
+            "category", cat_table=t,
+        )
         assert got == want
 
     def test_positional_histogram_matches_compacted(self):

@@ -216,24 +216,20 @@ class TestShardedCodedRuns:
         assert got == want  # byte-identical incl. the psum'd run table
 
 
-class TestPallasUnderShardMap:
-    """jax 0.9's shard_map default check_vma=True rejects pl.pallas_call
-    outputs (their ShapeDtypeStruct carries vma=None). Every TPU-backend
-    path in encode_step is Pallas, but the CPU suite gates Pallas off —
-    so the sharded static encode crashed ONLY on the hardware it targets
-    until check_vma=False was passed. use_pallas=True on CPU traces the
-    interpret-mode pallas_call under shard_map, which reproduces the
-    exact trace-time failure and pins the fix backend-independently."""
+class TestShardMapSteps:
+    """The shard_map'd steps with jax's default check_vma=True: the
+    static-table encode, the dp x sp batch step and the sharded
+    reconstruct (host entropy decode, unindexed containers)."""
 
-    def test_sharded_pallas_byte_identical(self, photo):
-        cfg = CodecConfig(quality=50, static_tables=True, use_pallas=True)
-        single = codec.encode(photo, CodecConfig(quality=50, static_tables=True))
+    def test_sharded_static_byte_identical(self, photo):
+        cfg = CodecConfig(quality=50, static_tables=True)
+        single = codec.encode(photo, cfg)
         mesh = meshlib.make_mesh()  # 1 x 8
         sharded = shard_encode.encode_image_sharded(photo, cfg, mesh)
         assert sharded == single
 
-    def test_batch_step_pallas(self):
-        cfg = CodecConfig(quality=50, static_tables=True, use_pallas=True)
+    def test_batch_step_two_frames(self):
+        cfg = CodecConfig(quality=50, static_tables=True)
         frames = np.stack(
             [image_io.synthetic_image(64, 64, "photo", seed=s) for s in range(2)]
         )
@@ -241,10 +237,7 @@ class TestPallasUnderShardMap:
         packed = shard_encode.encode_batch_step(
             jnp.asarray(frames), cfg, 8, mesh
         )
-        single = codec.encode_step(
-            jnp.asarray(frames[0]),
-            CodecConfig(quality=50, static_tables=True), 8,
-        )[0]
+        single = codec.encode_step(jnp.asarray(frames[0]), cfg, 8)[0]
         np.testing.assert_array_equal(
             np.asarray(packed.bit_lengths)[0], np.asarray(single.bit_lengths)
         )
@@ -260,26 +253,20 @@ class TestPallasUnderShardMap:
                 jnp.asarray(frames), cfg, 6, mesh
             )
 
-    def test_sharded_decode_pallas_roundtrip(self, photo):
-        """Sharded decode now runs _fused_decode inside shard_map (a
-        Mosaic kernel has no GSPMD partitioning rules — the old
-        with_sharding_constraint version was the same latent TPU-only
-        failure class as the encode-side check_vma crash). use_pallas on
-        the CPU mesh traces the interpret kernel under shard_map and the
-        reconstruction must match the single-device decoder exactly."""
-        cfg = CodecConfig(quality=50, static_tables=True, use_pallas=True)
+    def test_sharded_decode_unindexed_roundtrip(self, photo):
+        """An unindexed container: host entropy decode, then the sharded
+        reconstruct must match the single-device decoder exactly."""
+        cfg = CodecConfig(quality=50, static_tables=True, decode_index=False)
         mesh = meshlib.make_mesh()
         blob = shard_encode.encode_image_sharded(photo, cfg, mesh)
         rec = np.asarray(shard_encode.decode_image_sharded(blob, mesh))
-        want = codec.decode(blob)
-        np.testing.assert_array_equal(rec, np.asarray(want))
+        np.testing.assert_array_equal(rec, codec.decode(blob))
 
-    def test_sharded_decode_pallas_adaptive_color(self):
+    def test_sharded_decode_unindexed_adaptive_color(self):
         """Adaptive (per-block scale through shard_map) + color planes."""
         cfg = CodecConfig(
-            quality=50, adaptive=True, use_pallas=True, chroma="420",
+            quality=50, adaptive=True, chroma="420", decode_index=False,
         )
-        rng = np.random.default_rng(5)
         base = image_io.synthetic_image(128, 96, "photo", seed=4)
         rgb = np.stack(
             [np.clip(base.astype(np.int32) + d, 0, 255).astype(np.uint8)
@@ -295,26 +282,24 @@ class TestPallasUnderShardMap:
 
 class TestShardedDeviceDecode:
     """Sharded DEVICE entropy decode: container-v2 planes decode with the
-    Pallas entropy kernel under shard_map (zero collectives — stripes are
+    lax entropy decoder under shard_map (zero collectives — stripes are
     independent substreams), byte-identical to the host decoders for
     every mesh shape, including meshes the stripe count doesn't divide
-    (mesh-pad stripes decode as born-dead lanes)."""
+    (mesh-pad stripes are zero-length blocks)."""
 
     @staticmethod
     def _spy_device_path(monkeypatch):
         """The sharded device decode must actually RUN (not fall back to
         the host path, which would make the identity check vacuous)."""
         called = []
-        orig = shard_encode._device_decode_plane_sharded
+        orig = shard_encode._device_decode_step_sharded
 
         def spy(*a, **k):
-            out = orig(*a, **k)
-            assert out is not None, "device decode prep fell back"
             called.append(1)
-            return out
+            return orig(*a, **k)
 
         monkeypatch.setattr(
-            shard_encode, "_device_decode_plane_sharded", spy
+            shard_encode, "_device_decode_step_sharded", spy
         )
         return called
 
@@ -322,23 +307,19 @@ class TestShardedDeviceDecode:
     def test_identical_across_meshes(self, n_dev, monkeypatch):
         im = np.asarray(image_io.synthetic_image(48, 64, "photo", seed=9))
         cfg = CodecConfig(
-            quality=45, decode_index=True, use_pallas=True, adaptive=True,
+            quality=45, decode_index=True, adaptive=True,
             coded_runs=True, dc_prediction=True,
         )
         data = codec.ImageCodec(cfg).encode(im)
         host = codec.ImageCodec(cfg).decode(data)  # host entropy decode
-        monkeypatch.setattr(codec, "_FORCE_DEVICE_DECODE", True)
         called = self._spy_device_path(monkeypatch)
         mesh = meshlib.make_mesh(devices=jax.devices()[:n_dev])
-        dev = np.asarray(
-            shard_encode.decode_image_sharded(data, mesh, use_pallas=True)
-        )
+        dev = np.asarray(shard_encode.decode_image_sharded(data, mesh))
         assert called, "sharded decode never took the device entropy path"
         np.testing.assert_array_equal(host, dev)
 
     def test_color_indexed(self, monkeypatch):
-        cfg = CodecConfig(quality=50, decode_index=True, use_pallas=True,
-                          chroma="420")
+        cfg = CodecConfig(quality=50, decode_index=True, chroma="420")
         base = image_io.synthetic_image(64, 48, "photo", seed=2)
         rgb = np.stack(
             [np.clip(base.astype(np.int32) + d, 0, 255).astype(np.uint8)
@@ -348,11 +329,8 @@ class TestShardedDeviceDecode:
 
         blob = _color.ColorImageCodec(cfg).encode(rgb)
         host = np.asarray(_color.ColorImageCodec(cfg).decode(blob))
-        monkeypatch.setattr(codec, "_FORCE_DEVICE_DECODE", True)
         called = self._spy_device_path(monkeypatch)
         mesh = meshlib.make_mesh()
-        dev = np.asarray(
-            shard_encode.decode_image_sharded(blob, mesh, use_pallas=True)
-        )
+        dev = np.asarray(shard_encode.decode_image_sharded(blob, mesh))
         assert len(called) == 3, "expected all three planes on device"
         np.testing.assert_array_equal(host, dev)

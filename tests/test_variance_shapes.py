@@ -91,11 +91,11 @@ class TestAdaptiveAliasingShapes:
         assert rec.shape == (64, 64)
 
     @pytest.mark.parametrize("side,n", ALIASING)
-    def test_fused_kernel_aliasing_batch(self, side, n):
-        """Fused kernel (interpret mode on CPU) with NB == n^2 blocks must
-        match the staged packer — the variance wire feeding adaptive_scale
-        is per block, not scalar."""
-        from dct_tpu.ops.fused_encode_pallas import encode_stripes_fused
+    def test_packer_aliasing_batch(self, side, n):
+        """Adaptive encode with NB == n^2 blocks: the device packer must
+        match the host reference packer — the variance wire feeding
+        adaptive_scale is per block, not scalar."""
+        from dct_tpu.ops import bitstream as bs
         from dct_tpu.ops import huffman as hf, rle
 
         nb = n * n
@@ -115,13 +115,19 @@ class TestAdaptiveAliasingShapes:
         n_stripes = n  # nb == n^2 blocks split into n stripes of n blocks
         zz = transform.encode_blocks(pixels, cfg, adaptive_scale=scale)
         symbols = rle.rle_encode_positional(zz)
-        want = codec.encode_pack(symbols, cfg, n_stripes, lengths, codes)
-        got = encode_stripes_fused(
-            pixels, cfg, n_stripes, lengths, codes, adaptive_scale=scale
+        got = codec.encode_pack(symbols, cfg, n_stripes, lengths, codes)
+        v = np.asarray(symbols.values)
+        r = np.asarray(symbols.runs)
+        m = np.asarray(symbols.is_sym)
+        per = [
+            (v[s * n : (s + 1) * n][m[s * n : (s + 1) * n]],
+             r[s * n : (s + 1) * n][m[s * n : (s + 1) * n]])
+            for s in range(n_stripes)
+        ]
+        want = bs.pack_stripes_host(
+            per, "category", cat_table=table, n2=cfg.n2
         )
-        np.testing.assert_array_equal(
-            np.asarray(got.bit_lengths), np.asarray(want.bit_lengths)
-        )
+        assert bs.stripes_to_bytes(got) == want
 
     @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
     def test_sharded_aliasing_equals_single(self):
